@@ -5,7 +5,7 @@
 // interrupt flags (mbAbortBA, LocalMapping.cc:624; mbStopGBA,
 // LoopClosing.cc:446), stop/release/finish handshakes
 // (LocalMapping.cc:552-755), and steady-clock timing in every driver.
-// This library provides the same primitives for the TPU build's host
+// This library provides the same primitives for this framework's host
 // pipeline, exposed through a C ABI consumed via ctypes
 // (orbslam2_tpu/runtime/native.py).  Blocking waits happen here, off the
 // Python GIL.

@@ -1,8 +1,8 @@
-"""orbslam2_tpu — a TPU-native visual SLAM framework.
+"""orbslam2_tpu — visual SLAM written as JAX programs.
 
 A from-scratch re-design of the capabilities of ORB-SLAM2
-(fabrizioromanelli fork) for TPU hardware: the numerical core is
-JAX/XLA/Pallas, the map is array-structured functional state instead of a
+(fabrizioromanelli fork) for an accelerator: the numerical core is
+JAX/XLA, the map is array-structured functional state instead of a
 pointer graph, and multi-chip scaling uses jax.sharding meshes instead of
 threads+mutexes.
 
@@ -18,13 +18,12 @@ __version__ = "0.1.0"
 
 import jax as _jax
 
-# f32 matmuls/einsums MUST run at full precision on TPU: the default
-# bf16-input MXU path destroys the LM normal equations and projection
-# geometry — measured on-chip: the scale-circuit drift explodes 1.1 m →
-# 13 m within 250 frames at default precision while the identical run is
-# clean on CPU and at "highest".  The deliberately-bf16 kernels (the MXU
-# Hamming form) pass bf16 operands explicitly and are unaffected.
-# Respect an explicit user setting.
+# f32 matmuls/einsums run at full precision: on the H100 "highest" keeps
+# f32 dots in full FP32 instead of TF32 (10-bit mantissa), which the LM
+# normal equations and projection geometry need (a reduced-precision
+# default lets long trajectories diverge).  The pixel-domain einsums opt back out to DEFAULT
+# (TF32 here; parity in PERF.md), and the bf16 Hamming form passes bf16
+# operands explicitly.  Respect an explicit user setting.
 if _jax.config.jax_default_matmul_precision is None:
     _jax.config.update("jax_default_matmul_precision", "highest")
 

@@ -74,7 +74,7 @@ class OrbConfig:
 
     @property
     def n_features_padded(self) -> int:
-        """Feature capacity rounded up to a TPU-friendly multiple of 256."""
+        """Feature capacity rounded up to a multiple of 256 (static shapes)."""
         return _round_up(self.n_features, 256)
 
 
@@ -160,7 +160,7 @@ class ViewerConfig:
 
 @dataclass(frozen=True)
 class CapacityConfig:
-    """TPU-specific static capacities (no reference analogue: the reference's
+    """Static device-array capacities (no reference analogue: the reference's
     pointer graph grows unboundedly; we use fixed-capacity device arrays with
     liveness masks, per SURVEY.md §7)."""
 

@@ -13,7 +13,7 @@ Design mapping:
                             observation lists are recovered densely
   covisibility graph      → computed on demand: one [K,P]×[P,K] bool matmul
                             (KeyFrame::UpdateConnections, KeyFrame.cc:284,
-                            becomes an MXU op instead of map iteration)
+                            becomes a matmul instead of map iteration)
   spanning tree           → kf_parent [K]
   SetBadFlag / Replace    → mask writes + index redirection
   normal/depth statistics → incremental sums (UpdateNormalAndDepth,
@@ -225,8 +225,7 @@ def compact_mask(mask: jax.Array, cap: int
     """Indices of the first ``cap`` True entries of ``mask`` [M], in index
     order: (ids [cap], ok [cap]).  One cumsum + one scatter — replaces
     ``top_k(mask.astype(f32), cap)`` boolean compactions, which lower to a
-    full O(M log M) sort on TPU and dominated the fixed cost of every
-    mapping/tracking stage at M = 16k-32k."""
+    full O(M log M) sort at M = 16k-32k."""
     M = mask.shape[0]
     rank = jnp.cumsum(mask.astype(jnp.int32)) - 1
     tgt = jnp.where(mask & (rank < cap), rank, cap)
@@ -362,7 +361,7 @@ def covisibility_rows(ms: MapState, kf_ids: jax.Array) -> jax.Array:
 
 def covisibility(ms: MapState) -> jax.Array:
     """[K, K] int32 shared-map-point counts — the covisibility graph
-    (KeyFrame::UpdateConnections, KeyFrame.cc:284) as one MXU matmul."""
+    (KeyFrame::UpdateConnections, KeyFrame.cc:284) as one matmul."""
     M = obs_incidence(ms).astype(jnp.float32)
     W = (M @ M.T).astype(jnp.int32)
     W = W - jnp.diag(jnp.diagonal(W))

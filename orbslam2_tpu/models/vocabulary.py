@@ -7,7 +7,7 @@ Here the vocabulary is built once by hierarchical k-majority clustering on
 descriptors harvested from synthetic scenes (deterministic, cached to npz)
 and laid out as dense per-level centroid arrays, so descent is a batched
 gather + Hamming argmin per level (ops/bow.py) — no pointers, no SIMD
-intrinsics, just VPU popcounts.
+intrinsics, just elementwise popcounts.
 
 Layout: level d has k^(d+1) centroids (k children per level-d node, flat:
 children of node n are rows n·k … n·k+k−1 of level d+1's table).  Leaf ids

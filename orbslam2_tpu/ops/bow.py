@@ -4,7 +4,7 @@ Replaces fbow's SIMD tree descent and scoring (Thirdparty/fbow/fbow.h:38,
 84-114; called from Frame::ComputeFboW, src/Frame.cc:395): word assignment
 is a per-level gather + Hamming argmin over k children, tf-idf vectors are
 dense [n_words] arrays, and similarity is a dot product — so scoring one
-query against the whole keyframe database is a single MXU matmul
+query against the whole keyframe database is a single matmul
 (models/keyframe_db.py).
 """
 

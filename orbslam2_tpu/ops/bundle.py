@@ -7,16 +7,15 @@ backend does sparse-Schur LM (BlockSolver_6_3 + LinearSolverEigen with
 landmark marginalization, ``vPoint->setMarginalized(true)``,
 Optimizer.cc:623).
 
-TPU-first formulation — no sparse matrices anywhere:
-  * residuals/Jacobians for all O observations evaluated batched (VPU),
+Dense, batched formulation — no sparse matrices anywhere:
+  * residuals/Jacobians for all O observations evaluated batched,
   * per-camera 6×6, per-landmark 3×3 and camera-landmark 6×3 blocks built
-    by scatter-add segment sums,
+    by segment sums (one-hot matmuls or scatter-adds, see linearize),
   * the cross-camera Schur term  Σ_p U_p·Hpp_p⁻¹·U_pᵀ  is one batched
-    [P,6C,3]×[P,3,3]×[P,3,6C] einsum chain on the MXU,
+    [P,6C,3]×[P,3,3]×[P,3,6C] einsum chain,
   * the reduced 6C×6C system is Jacobi-preconditioned and solved dense by
-    Cholesky — at the local-BA window size (C ≤ 32 ⇒ 192×192) this is
-    microseconds on the MXU; for global BA it stays dense (C ≤ 512 ⇒
-    3072×3072, still MXU-friendly).
+    Cholesky — at the local-BA window size (C ≤ 32 ⇒ 192×192) and for
+    global BA below the CG switch (C ≤ 512 ⇒ 3072×3072).
 
 Iteration schedule mirrors the reference: 5 LM iterations, chi² outlier
 down-weighting, 10 more, then a final outlier classification
@@ -35,6 +34,10 @@ from orbslam2_tpu.ops import smallmat as sm
 from orbslam2_tpu.ops.pose_opt import CHI2_MONO, CHI2_STEREO
 from orbslam2_tpu.utils import camera as cam_mod
 from orbslam2_tpu.utils import lie
+
+# O·P up to which the dense solver builds its segment sums as one-hot
+# matmuls instead of scatter-adds.
+ONEHOT_MAX_PAIRS = 1 << 26
 
 
 class BAProblem(NamedTuple):
@@ -201,12 +204,11 @@ def bundle_adjust(
 
             O = prob.cam_i.shape[0]
             # Segment sums as ONE-HOT MATMULS where the [O, P] indicator
-            # fits: TPU scatter-add serializes on potentially-colliding
-            # indices — at the local-BA shapes (O=16k, P=2k) the five
-            # scatters cost 1.9 ms/linearize vs 0.2 ms for the matmul
-            # form (probe_lm).  Giant problems (GBA chunks: O·P ≈ 2G)
-            # keep the scatter path — there the indicator would not fit.
-            use_onehot = solver == "dense" and O * P <= (1 << 26)
+            # fits, scatter-adds otherwise: giant problems (GBA chunks,
+            # O·P ≈ 2G) could not hold the indicator.  The gate predates
+            # the H100; both forms' timings there at the local-BA shape
+            # are in PERF.md.
+            use_onehot = solver == "dense" and O * P <= ONEHOT_MAX_PAIRS
             if use_onehot:
                 HP = jax.lax.Precision.HIGHEST
                 oh_cam = (cam_slot[:, None]
@@ -434,7 +436,7 @@ def _schur_solve_cg(a_obs, Hcc_d, Hpp_inv, g_c, g_p, prob, cam_slot,
 
 def _inv6x6(A: jax.Array) -> jax.Array:
     """Batched 6×6 SPD inverse via 2×2 block inversion with 3×3 blocks
-    (avoids linalg.inv's LU path; stays on the VPU)."""
+    (avoids linalg.inv's LU path; stays elementwise)."""
     A11 = A[..., :3, :3]
     A12 = A[..., :3, 3:]
     A21 = A[..., 3:, :3]

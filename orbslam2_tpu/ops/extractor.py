@@ -1,6 +1,6 @@
 """ORB feature extraction: pyramid FAST + orientation + rotated BRIEF.
 
-TPU-first redesign of ``ORBextractor`` (src/ORBextractor.cc:405-948):
+Static-shape redesign of ``ORBextractor`` (src/ORBextractor.cc:405-948):
 
 * per-cell two-threshold FAST  → one exact-score pass + masked compare
   (ops/fast.py)
@@ -111,7 +111,7 @@ def _select_keypoints(score: jax.Array, cap: int, ini_th: float, min_th: float,
     # per-cell top-k, rank-penalized so cells round-robin by rank.
     # Iterative max+mask instead of lax.top_k: top_k lowers to a full
     # per-row sort (measured ~6 ms here); 8 masked max passes are pure
-    # VPU elementwise work.
+    # elementwise work.
     vals_l, idx_l = [], []
     work = cells
     col = jax.lax.broadcasted_iota(jnp.int32, work.shape, 1)
@@ -156,8 +156,8 @@ def _moment_kernels():
 def _orientation_maps(img: jax.Array) -> Tuple[jax.Array, jax.Array]:
     """Level image → (m10 map, m01 map) at every pixel.  Kept for oracle
     tests; production uses keypoint_angles (per-keypoint gather — moments
-    at every pixel would be a single-channel 31×31 conv, which lowers
-    poorly on TPU and wastes ~1000× the work)."""
+    at every pixel would be a single-channel 31×31 conv, ~1000× the
+    work)."""
     k = jnp.asarray(_moment_kernels().reshape(31, 31, 2).transpose(2, 0, 1))
     r = pattern_mod.HALF_PATCH
     x = jnp.pad(img, ((r, r), (r, r)), mode="edge")[None, None]
@@ -169,8 +169,9 @@ def _orientation_maps(img: jax.Array) -> Tuple[jax.Array, jax.Array]:
 
 def keypoint_angles(level_img: jax.Array, xy: jax.Array) -> jax.Array:
     """IC angles at the keypoints only: one-hot-matmul patch extraction
-    (ops/sampling.py — TPU gathers are ~100× slower than the MXU here)
-    then contraction with the two moment masks ([cap, 961] × [961, 2])."""
+    (ops/sampling.py) then contraction with the two moment masks
+    ([cap, 961] × [961, 2]).  DEFAULT precision runs as TF32 on the H100;
+    parity with the CPU in PERF.md."""
     r = pattern_mod.HALF_PATCH
     patches = sampling.extract_patches(
         level_img, xy[:, 0], xy[:, 1], r, r).reshape(-1, 961)
@@ -187,7 +188,7 @@ def _descriptors(blurred: jax.Array, xy: jax.Array, angle: jax.Array
     """Rotated BRIEF: [cap, 2] int coords + [cap] angles → [cap, 8] uint32.
 
     One 49×49 patch per keypoint (one-hot matmuls) + one-hot point
-    sampling of the 512 steered pattern positions — all MXU work, no
+    sampling of the 512 steered pattern positions — all matmul work, no
     image-wide gathers (ops/sampling.py rationale)."""
     pat = jnp.asarray(pattern_mod.brief_pattern())      # [256, 4] int32
     px = jnp.concatenate([pat[:, 0], pat[:, 2]]).astype(jnp.float32)  # [512]

@@ -1,4 +1,4 @@
-"""FAST-9/16 corner detection, fully vectorized for the VPU.
+"""FAST-9/16 corner detection, fully vectorized.
 
 Replaces the per-cell cv::FAST calls in
 ``ORBextractor::ComputeKeyPointsOctTree`` (src/ORBextractor.cc:759-810).
@@ -37,7 +37,7 @@ def fast_score(img: jax.Array) -> jax.Array:
     ``threshold < score`` convention.  Non-corner pixels get score ≤ 0.
 
     Pure shifted-image arithmetic: 16 rolls + a circular min-filter, all
-    elementwise VPU work, no gathers.
+    elementwise work, no gathers.
     """
     x = img.astype(jnp.float32)
     # ring[k] = image shifted so ring[k][y, x] = img[y + dy_k, x + dx_k]

@@ -6,7 +6,7 @@ bit-twiddling popcount called in every matcher inner loop) and fbow's SIMD
 ``Lx`` distance classes (Thirdparty/fbow/fbow.h:206+).  Instead of one
 distance at a time, we compute whole [N, M] distance matrices:
 XOR + population_count + a reduction over the 8 uint32 words, which XLA
-fuses into a single VPU pass.
+fuses into a single elementwise pass.
 """
 
 from __future__ import annotations
@@ -17,7 +17,9 @@ import jax.numpy as jnp
 MAX_DIST = 256  # distances are in [0, 256]; use as +inf sentinel
 
 
-_MXU_THRESHOLD = 1 << 20  # N*M above which the matmul form wins
+# N*M from which the matmul form is used.  The threshold predates the
+# H100; both forms' timings there are in PERF.md.
+MATMUL_FORM_MIN_PAIRS = 1 << 20
 
 
 def _unpack_bits_bf16(x: jax.Array) -> jax.Array:
@@ -35,25 +37,34 @@ def hamming_matrix(a: jax.Array, b: jax.Array) -> jax.Array:
       (the broadcast ``popcount(a[:,None,:] ^ b[None,:,:]).sum(-1)``
       form materializes [N, M, 8] intermediates that XLA does not fuse).
     * large N·M (≥ 2²⁰ pairs, e.g. the [4096, 1024] fuse/tracking
-      matchers) — bit-unpack to {0,1} bf16 and ride the MXU:
+      matchers) — bit-unpack to {0,1} bf16 and use a matrix product:
       d(a,b) = |a| + |b| − 2·a·bᵀ.  Counts ≤ 256 are exactly
       representable in bf16 and the product accumulates in f32, so the
       result is bit-identical to the popcount path (asserted in
       tests/test_matching.py); HBM traffic drops from eight [N, M]
       accumulation passes to one [N, 256]·[256, M] matmul.
     """
-    N, M = a.shape[0], b.shape[0]
-    if N * M >= _MXU_THRESHOLD:
-        A = _unpack_bits_bf16(a)
-        B = _unpack_bits_bf16(b)
-        pa = jnp.sum(A, axis=1, dtype=jnp.float32)
-        pb = jnp.sum(B, axis=1, dtype=jnp.float32)
-        ab = jax.lax.dot_general(
-            A, B, (((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32,
-            precision=jax.lax.Precision.DEFAULT)  # {0,1} ops: exact
-        return (pa[:, None] + pb[None, :] - 2.0 * ab).astype(jnp.int32)
-    acc = jnp.zeros((N, M), jnp.int32)
+    if a.shape[0] * b.shape[0] >= MATMUL_FORM_MIN_PAIRS:
+        return hamming_matrix_matmul(a, b)
+    return hamming_matrix_popcount(a, b)
+
+
+def hamming_matrix_matmul(a: jax.Array, b: jax.Array) -> jax.Array:
+    """The matmul form of :func:`hamming_matrix`, at any size."""
+    A = _unpack_bits_bf16(a)
+    B = _unpack_bits_bf16(b)
+    pa = jnp.sum(A, axis=1, dtype=jnp.float32)
+    pb = jnp.sum(B, axis=1, dtype=jnp.float32)
+    ab = jax.lax.dot_general(
+        A, B, (((1,), (1,)), ((), ())),
+        preferred_element_type=jnp.float32,
+        precision=jax.lax.Precision.DEFAULT)  # {0,1} ops: exact
+    return (pa[:, None] + pb[None, :] - 2.0 * ab).astype(jnp.int32)
+
+
+def hamming_matrix_popcount(a: jax.Array, b: jax.Array) -> jax.Array:
+    """The word-loop popcount form of :func:`hamming_matrix`."""
+    acc = jnp.zeros((a.shape[0], b.shape[0]), jnp.int32)
     for k in range(a.shape[-1]):
         x = a[:, k][:, None] ^ b[:, k][None, :]
         acc = acc + jax.lax.population_count(x).astype(jnp.int32)

@@ -41,16 +41,16 @@ def _resize_matrix(n_out: int, n_in: int) -> np.ndarray:
 
 
 def resize_bilinear(img: jax.Array, h2: int, w2: int) -> jax.Array:
-    """[..., H, W] → [..., h2, w2] separable bilinear resize as two MXU
-    matmuls with constant interpolation matrices.  jax.image.resize lowers
-    to gather chains that measured 20 ms for a 5-level 640×480 pyramid on
-    TPU; this is <1 ms."""
+    """[..., H, W] → [..., h2, w2] separable bilinear resize as two
+    matmuls with constant interpolation matrices (jax.image.resize lowers
+    to gather chains)."""
     h1, w1 = img.shape[-2], img.shape[-1]
     Ry = jnp.asarray(_resize_matrix(h2, h1))       # [h2, h1]
     Rx = jnp.asarray(_resize_matrix(w2, w1))       # [w2, w1]
-    # DEFAULT (bf16-input) precision: pixel resize to u8-level accuracy,
-    # same quantization as the reference's u8 cv::resize (the framework
-    # default is "highest" for geometry, orbslam2_tpu/__init__.py)
+    # DEFAULT precision (TF32 on the H100): pixel resize to u8-level
+    # accuracy, the quantization of the reference's u8 cv::resize (the
+    # framework default is "highest" for geometry,
+    # orbslam2_tpu/__init__.py; frontend parity in PERF.md)
     P = jax.lax.Precision.DEFAULT
     out = jnp.einsum("ah,...hw->...aw", Ry, img, precision=P)
     return jnp.einsum("bw,...aw->...ab", Rx, out, precision=P)
@@ -62,7 +62,7 @@ def build_pyramid(img: jax.Array, n_levels: int, scale_factor: float
 
     Resizes each level from the previous one with bilinear interpolation,
     mirroring the reference's level-chained cv::resize(INTER_LINEAR),
-    as constant-matrix MXU matmuls (see resize_bilinear).
+    as constant-matrix matmuls (see resize_bilinear).
     """
     h, w = img.shape[-2], img.shape[-1]
     shapes = pyramid_shapes(h, w, n_levels, scale_factor)
@@ -85,11 +85,9 @@ def gaussian_blur(img: jax.Array, ksize: int = 7, sigma: float = 2.0
     """Separable Gaussian blur with reflect-101 (OpenCV default) borders.
 
     [..., H, W] → same shape.  Implemented as 2·ksize static shifted
-    slices with scalar weights — pure elementwise VPU work that XLA fuses
-    into one pass.  (A 1-channel NCHW conv_general_dilated here cost
-    ~2.5 ms per 480×640 level on the bench chip: the MXU path pads the
-    single channel to a full lane group and wastes >95% of the array;
-    the slice form runs in ~0.05 ms.)
+    slices with scalar weights — elementwise work that XLA fuses into
+    one pass, where a 1-channel conv_general_dilated would pad the single
+    channel.
     """
     k = _gaussian_kernel_1d(ksize, sigma)       # numpy: closure constants
     r = ksize // 2

@@ -3,12 +3,12 @@ re-designed dense.
 
 The reference accelerates candidate search with a 64×48 feature grid
 (``Frame::GetFeaturesInArea``) and BoW feature-vector node alignment
-(``SearchByFboW``) because a CPU cannot afford brute force.  On TPU the
-idiomatic design is the opposite: compute the full [points × keypoints]
-Hamming-distance matrix (XOR+popcount, ops/hamming.py) and apply window /
-level / epipolar gates as elementwise masks — exact search, no candidate
-pruning, everything on the VPU.  Match-index outputs are fixed-shape int32
-arrays with −1 sentinels.
+(``SearchByFboW``) because a CPU cannot afford brute force.  On an
+accelerator the idiomatic design is the opposite: compute the full
+[points × keypoints] Hamming-distance matrix (XOR+popcount,
+ops/hamming.py) and apply window / level / epipolar gates as elementwise
+masks — exact search, no candidate pruning, one fused pass.  Match-index
+outputs are fixed-shape int32 arrays with −1 sentinels.
 
 Constants TH_LOW=50, TH_HIGH=100, HISTO_LENGTH=30 (ORBmatcher.cc:35-37).
 """
@@ -151,13 +151,6 @@ def search_by_projection(
     r = jnp.where(view_cos > 0.998, 2.5, 4.0) * (radius / 4.0)
     win = r * scale_of                                     # [P]
 
-    # NOTE: a Pallas fusion of this gate+distance+top2 was measured and
-    # dropped — XLA's reduce fusion already keeps every [P, N]
-    # intermediate out of HBM here (the fused gate+min chain runs FASTER
-    # than materializing the distance matrix alone), so the kernel bought
-    # nothing and fought VMEM limits.  The Pallas win is real only for
-    # the plain matcher whose matrix IS otherwise materialized
-    # (pallas_hamming.hamming_top2, used by match_descriptors).
     du = jnp.abs(uv[:, 0:1] - kp_xy[None, :, 0])           # [P, N]
     dv = jnp.abs(uv[:, 1:2] - kp_xy[None, :, 1])
     in_win = (du < win[:, None]) & (dv < win[:, None])
@@ -192,19 +185,8 @@ def match_descriptors(
 
     Returns (a→b index [A], distance [A]).
     """
-    if jax.default_backend() == "tpu" and desc_b.shape[0] <= 4096:
-        # fused Pallas tile kernel: the [A, B] distance matrix never
-        # leaves VMEM (ops/pallas_hamming.py; bit-identical to the XLA
-        # path, asserted by tests/test_tpu_smoke.py).  Guarded on B: the
-        # kernel keeps a [256, B] int32 tile resident, so a concatenated
-        # multi-keyframe bank past ~4k columns would blow the ~16 MB VMEM
-        # budget — larger banks take the HBM XLA path (ADVICE r4)
-        from orbslam2_tpu.ops import pallas_hamming
-        best, best_idx, second = pallas_hamming.hamming_top2(
-            desc_a, valid_a, desc_b, valid_b)
-    else:
-        d = hamming.masked_hamming_matrix(desc_a, valid_a, desc_b, valid_b)
-        best, best_idx, second = best_and_second(d)
+    d = hamming.masked_hamming_matrix(desc_a, valid_a, desc_b, valid_b)
+    best, best_idx, second = best_and_second(d)
     ok = ((best <= th) & (best < nn_ratio * second.astype(jnp.float32))
           & valid_a)
     if check_rotation and angle_a is not None:

@@ -6,7 +6,7 @@ covisibility(≥100) / previous-loop edges, 20 iterations, then SE3 recovery
 with scale division (:1035-1054) and map-point correction through each
 point's reference keyframe (:1057-1087).
 
-TPU-first formulation: vertices are tangent perturbations x ∈ R^{K×7}
+Dense formulation: vertices are tangent perturbations x ∈ R^{K×7}
 around base Sim3s; the residual over all E edges evaluates batched, and
 the Gauss-Newton normal equations are solved **matrix-free** — JᵀJ·v is
 one jvp + one vjp through the residual function, so conjugate gradients

@@ -5,8 +5,8 @@ LM solve over a single SE3 pose with unary mono/stereo reprojection edges,
 run as 4 rounds × 10 iterations with chi²-based inlier reclassification
 between rounds and the Huber kernel dropped after round 2.
 
-TPU shape: residuals/Jacobians for all N observations evaluated batched
-(VPU), reduced to a 6×6 normal system (one matmul), solved in-register.
+Batched shape: residuals/Jacobians for all N observations evaluated
+batched, reduced to a 6×6 normal system (one matmul), solved in-register.
 Fixed iteration counts, no data-dependent control flow — the whole solve is
 one jittable function.
 """
@@ -42,7 +42,7 @@ def _residuals_jac(cam: cam_mod.Camera, Tcw: jax.Array, obs: PoseObs):
     convention T ← exp(ξ)·T).  Third row is the stereo u_r edge, zeroed for
     monocular observations."""
     R, t = lie.mat_to_rt(Tcw)
-    # VPU broadcast form of pts @ Rᵀ (exact f32, precision-flag-free —
+    # Broadcast form of pts @ Rᵀ (exact f32, precision-flag-free —
     # ops/smallmat.py); this evaluation sits inside the 40-iteration LM
     # scan and runs up to 3× per tracked frame
     pc = jnp.sum(obs.pts_w[:, None, :] * R[None, :, :], axis=-1) + t
@@ -129,8 +129,7 @@ def pose_optimization(
         # Trying a step needs only (H_best, b_best); evaluating the
         # candidate produces its own (H, b, chi²) which become the carried
         # state iff accepted.  (The naive form evaluates twice per
-        # iteration — measured 2× slower on TPU, where the 80-iteration
-        # dependency chain is latency-bound.)
+        # iteration along an 80-iteration dependency chain.)
         def iteration(carry, _):
             T_best, H_best, b_best, chi2_best, lam, done = carry
 

@@ -1,6 +1,6 @@
 """Stereo rectification: the cv::initUndistortRectifyMap / cv::remap pair
 of the EuRoC driver (/root/reference/Test/Replay/Stereo/stereo_euroc.cc:72-100)
-re-implemented for the TPU build.
+re-implemented as array programs.
 
 The reference builds per-pixel source-coordinate maps once from the
 LEFT./RIGHT. calibration blocks of Stereo-EuRoC.yaml (K/D/R/P) and remaps

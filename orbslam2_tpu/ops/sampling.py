@@ -1,18 +1,15 @@
 """Gather-free patch extraction and point sampling via one-hot matmuls.
 
-TPU reality check (measured on the bench chip, real-execution mode): XLA
-gathers with scattered indices run at ~100-200M elements/s, which made the
-per-keypoint patch gathers (IC-angle moments, rotated-BRIEF samples, stereo
-SAD windows) the dominant frontend cost (~40 ms/frame).  The MXU runs
-dense f32 matmuls at tens of TFLOP/s, so the idiomatic replacement is
-selection-matrix contraction:
+Per-keypoint patch reads (IC-angle moments, rotated-BRIEF samples,
+stereo SAD windows) are written as selection-matrix contractions instead
+of scattered gathers:
 
     patch[n] = R(n) @ img @ C(n)ᵀ
 
 with R(n) = one-hot row-selector [rows, H] and C(n) = one-hot column-
 selector [cols, W] built on the fly from keypoint coordinates (two iota
-compares — pure VPU).  A 1024-keypoint 45×45 extraction is ~8 GFLOP:
-~0.2 ms on the MXU vs ~10 ms as a gather.
+compares).  A 1024-keypoint 45×45 extraction is ~8 GFLOP of dense matmul
+work.  Gather vs matmul time on the H100: not measured.
 
 Point sampling from per-keypoint patches (rotated BRIEF) follows the same
 pattern one level down: one-hot selectors over the patch rows/cols.
@@ -23,10 +20,11 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-# pixel-domain one-hot matmuls are exact at DEFAULT (bf16-input) MXU
-# precision to u8 quantization: one-hot factors are exactly 0/1 and
-# accumulation is f32 — opting out of the framework-wide "highest"
-# default (orbslam2_tpu/__init__.py) keeps the frontend on the fast path
+# Pixel-domain one-hot matmuls opt out of the framework-wide "highest"
+# default (orbslam2_tpu/__init__.py).  On the H100 DEFAULT runs f32 dots
+# as TF32 (10-bit mantissa): the 0/1 selectors are exact and the sums
+# accumulate in f32, so only the pixel values round.  The stereo
+# frontend's GPU-vs-CPU parity under this setting is in PERF.md.
 _PIX = jax.lax.Precision.DEFAULT
 
 
@@ -54,8 +52,8 @@ def extract_patches(img: jax.Array, cx: jax.Array, cy: jax.Array,
     cidx = cxc[:, None] + jnp.arange(-half_w, half_w + 1)[None, :]   # [n, C]
     R = _onehot_rows(ridx, h, img.dtype)            # [n, R, H]
     C = _onehot_rows(cidx, w, img.dtype)            # [n, C, W]
-    strips = jnp.einsum("nrh,hw->nrw", R, img, precision=_PIX)      # [n, R, W]  (MXU)
-    return jnp.einsum("nrw,ncw->nrc", strips, C, precision=_PIX)    # [n, R, C]  (MXU)
+    strips = jnp.einsum("nrh,hw->nrw", R, img, precision=_PIX)      # [n, R, W]
+    return jnp.einsum("nrw,ncw->nrc", strips, C, precision=_PIX)    # [n, R, C]
 
 
 def extract_windows(img: jax.Array, cx: jax.Array, cy: jax.Array,
@@ -85,7 +83,7 @@ def sample_points(patches: jax.Array, px: jax.Array, py: jax.Array
     coordinates px/py [n, S] → values [n, S].
 
     value[n, s] = Σ_rc onehot(py)[n,s,r] · patch[n,r,c] · onehot(px)[n,s,c]
-    — two batched MXU contractions instead of an n·S-element gather."""
+    — two batched contractions instead of an n·S-element gather."""
     n, R, C = patches.shape
     pyc = jnp.clip(py, 0, R - 1)
     pxc = jnp.clip(px, 0, C - 1)

@@ -1,23 +1,17 @@
-"""Exact small-matrix products on the VPU.
+"""Exact small-matrix products as broadcast-multiply-reduce.
 
-f32 matmuls on the TPU MXU are algorithmic bf16 passes: DEFAULT is one
-pass (drops ~16 mantissa bits — enough to diverge trajectories, see
-orbslam2_tpu/__init__.py), HIGHEST is six passes (exact, but 6x the op
-cost).  The geometry and normal-equation products in the optimizers
-contract over tiny axes (2/3/4/6), so the MXU brings no throughput —
-only the pass multiplier: measured on the bench chip, the local-BA
-program costs 79 ms/keyframe at HIGHEST vs 31 ms at DEFAULT with
-identical shapes (probe_mapping_stages.py).
-
-Spelling these contractions as broadcast-multiply-reduce keeps them on
-the VPU: exact f32 arithmetic AND independent of the matmul-precision
-flag.  Use these helpers for every product whose contraction axis is
-O(10); leave genuinely large matmuls (Hamming banks, one-hot sampling,
-the reduced-camera Cholesky) to the MXU.
+The geometry and normal-equation products in the optimizers contract
+over tiny axes (2/3/4/6), where a matrix unit brings no throughput.
+Spelling them as broadcast-multiply-reduce gives exact f32 arithmetic
+independent of the matmul-precision flag (orbslam2_tpu/__init__.py),
+and XLA fuses them with their neighbours.  Use these helpers for every
+product whose contraction axis is O(10); leave genuinely large matmuls
+(Hamming banks, one-hot sampling, the reduced-camera Cholesky) to
+dot_general.  Matmul vs this form on the H100: not measured.
 
 Role reference: g2o evaluates the same per-edge Jacobian/Hessian blocks
 in scalar C++ doubles (Thirdparty/g2o types_six_dof_expmap.h:59-174);
-exact f32 VPU lanes are the TPU-shaped equivalent.
+exact f32 elementwise arithmetic is the array-shaped equivalent.
 """
 
 from __future__ import annotations
@@ -26,7 +20,7 @@ import jax.numpy as jnp
 
 
 def bmm(a, b):
-    """[..., i, k] x [..., k, j] -> [..., i, j], exact f32 on the VPU."""
+    """[..., i, k] x [..., k, j] -> [..., i, j], exact f32 elementwise."""
     return jnp.sum(a[..., :, :, None] * b[..., None, :, :], axis=-2)
 
 

@@ -84,9 +84,8 @@ def match_stereo(
     sad = jnp.zeros((n, n_shifts), jnp.float32)
     for l in range(n_levels):
         sel = feats_l.level == l
-        # one-hot-matmul patch/window extraction (ops/sampling.py): TPU
-        # gathers at this volume (~1.4M elements/level) measured ~10× the
-        # MXU formulation
+        # one-hot-matmul patch/window extraction (ops/sampling.py)
+        # instead of ~1.4M-element gathers per level
         patch_l = sampling.extract_patches(pyr_l[l], suL, svL, SAD_W, SAD_W)
         win_r = sampling.extract_windows(pyr_r[l], suR0, svL, n_shifts,
                                          SAD_W, SAD_W)   # [N, 11, 11, 11]

@@ -31,8 +31,8 @@ def triangulate_dlt(P1: jax.Array, P2: jax.Array, uv1: jax.Array,
     Returns [N, 3] world points.
 
     Inhomogeneous DLT (w=1): the 4×4 smallest-singular-vector problem
-    becomes a closed-form 3×3 normal-equation solve — pure VPU elementwise
-    math where batched eig/SVD lowers to a slow iterative kernel on TPU.
+    becomes a closed-form 3×3 normal-equation solve — elementwise math
+    instead of a batched iterative eig/SVD.
     Points at infinity (where w=1 degenerates) are rejected downstream by
     the parallax gate (cos_par < 0.9998) in every caller.
     """

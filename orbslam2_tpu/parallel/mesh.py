@@ -2,7 +2,8 @@
 
 The reference has no multi-device story (SURVEY.md §2.4 P6) — this is the
 new capability: keyframe/map-point/observation blocks are sharded over a
-1-D ``jax.sharding.Mesh`` and XLA inserts the ICI collectives.
+1-D ``jax.sharding.Mesh`` and XLA inserts the collectives (NCCL on
+GPUs).  One axis fits cards that reach each other at the same rate.
 """
 
 from __future__ import annotations

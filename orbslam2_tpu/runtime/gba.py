@@ -7,7 +7,7 @@ briefly and propagates the corrections through the spanning tree to
 keyframes created *while* GBA was running, then corrects map points
 through their reference keyframes (:679-788).
 
-TPU-native equivalents here:
+Array-program equivalents here:
 
   * the GBA itself is the matrix-free CG Schur solver
     (ops/bundle.bundle_adjust(solver="cg")) over an immutable MapState

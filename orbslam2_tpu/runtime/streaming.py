@@ -1,15 +1,12 @@
 """Streaming window tracking: N frames per device program.
 
-Motivation (all numbers measured on the bench TPU, real-execution mode):
-the runtime charges ~2 ms per dispatch, ~2 ms per output buffer, ~24 ms
-latency per host→device transfer (plus ~100 MB/s for the payload, and a
-pathological slow path for 2-D arrays — a single 640×480 f32 image took
-100 ms as 2-D vs 33 ms flattened), and ~25 ms for any synchronous
-round-trip.  A per-frame host loop therefore floors at ~25 ms/frame no
-matter how fast the kernels are.
+Motivation: every dispatch, host→device transfer and synchronous fetch
+costs host latency, so a per-frame host loop floors at that latency no
+matter how fast the kernels are.  (Per-dispatch cost on the H100: not
+measured.)
 
-The TPU-native answer is to keep the whole *tracking* recurrence on
-device and stream frames in windows:
+The answer here is to keep the whole *tracking* recurrence on device and
+stream frames in windows:
 
   * images arrive as ONE flat uint8 buffer per window (fast H2D path;
     cameras and datasets are 8-bit anyway) and are reshaped/converted

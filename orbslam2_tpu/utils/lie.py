@@ -7,7 +7,7 @@ Eigen ⇄ g2o::SE3Quat/Sim3) and the manifold machinery inside g2o
 arbitrary leading batch dimensions — poses are ``[..., 4, 4]`` homogeneous
 matrices, tangents are ``[..., 6]`` (SE3: [ω, υ]) or ``[..., 7]``
 (Sim3: [ω, υ, σ]) — so RANSAC hypotheses and BA blocks vectorize onto the
-VPU/MXU instead of looping.
+device instead of looping.
 """
 
 from __future__ import annotations
@@ -170,9 +170,8 @@ def transform_points(T: jax.Array, pts: jax.Array) -> jax.Array:
     """[..., 4, 4] × [..., N, 3] → [..., N, 3].
 
     Broadcast-multiply-reduce, not ``pts @ Rᵀ``: a 3-wide contraction
-    pads 3→128 MXU lanes and pays the matmul-precision pass multiplier
-    (6× at the framework's "highest" default); the VPU form is exact
-    f32 and precision-flag-independent (ops/smallmat.py)."""
+    gains nothing from a matmul, and this form is exact f32 and
+    independent of the matmul-precision flag (ops/smallmat.py)."""
     R, t = mat_to_rt(T)
     pts = jnp.asarray(pts)
     if pts.ndim == R.ndim - 1:          # single point per pose: [..., 3]

@@ -4,7 +4,7 @@ The reference ships a librealsense2-based camera driver
 (Drivers/RealSense/realsense.{h,cc}: modalities RGBD/IRD/IRL/IRR/MULTI for
 D435i + T265, frame alignment, timestamps, laser control) and links a
 prebuilt UWB ranging library (UwbApi.h, consumed by Test/Live/UWB/uwb.cc).
-TPU hosts have neither camera hardware nor the vendor libraries, so these
+Accelerator hosts have neither camera hardware nor the vendor libraries, so these
 adapters keep the *interface* (the capability surface callers program
 against) with a recorded-sequence backend; a hardware backend can be
 plugged in by overriding `_grab`.
@@ -53,7 +53,7 @@ class RealSenseDevice:
     def start(self) -> None:
         if self.replay_dir is None:
             raise RuntimeError(
-                "no camera hardware on a TPU host: construct with "
+                "no camera hardware on this host: construct with "
                 "replay_dir= (recorded sequence) or subclass with a "
                 "hardware backend")
         from orbslam2_tpu.utils.datasets import iter_tum_rgbd

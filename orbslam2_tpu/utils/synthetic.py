@@ -317,6 +317,29 @@ def orbit_trajectory(n: int, radius: float = 6.0, z_center: float = 12.0,
     return poses
 
 
+def orbit_scene(rng, n=1000, wall_radius=12.0, z_center=10.0):
+    """Cylindrical wall of sprites around the orbit center: an outward-
+    looking camera sees a stable, occlusion-free texture shell from every
+    angle (EuRoC-room-like geometry)."""
+    scene = make_scene(rng, n)
+    a = rng.uniform(0, 2 * np.pi, n)
+    r = wall_radius + rng.uniform(-1.5, 1.5, n)
+    pts = np.stack([r * np.sin(a), rng.uniform(-5.0, 5.0, n),
+                    z_center - r * np.cos(a)], -1)
+    scene.points[:] = pts
+    return scene
+
+
+def outward_orbit(n, radius=4.0, z_center=10.0, turns=1.0):
+    """Camera circling the center while looking outward at the wall."""
+    poses = []
+    for i in range(n):
+        a = 2.0 * np.pi * turns * i / n
+        t = np.array([radius * np.sin(a), 0.0, z_center - radius * np.cos(a)])
+        poses.append(look_ahead_pose(t, yaw=np.pi + a))
+    return poses
+
+
 def room_world(rng: np.random.Generator, half: float = 34.0,
                tex_size: int = 512) -> World:
     """Closed rectangular room (4 inward walls + ground + ceiling), each

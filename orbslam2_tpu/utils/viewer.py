@@ -1,7 +1,7 @@
 """Offline map/trajectory visualization — the Viewer/MapDrawer/FrameDrawer
 replacement (src/Viewer.cc, MapDrawer.cc, FrameDrawer.cc).
 
-The reference opens a live Pangolin GUI; a TPU host is headless, so the
+The reference opens a live Pangolin GUI; an accelerator host is headless, so the
 equivalent capability is offline export: PLY point clouds + camera
 frusta (readable by MeshLab/CloudCompare), a self-contained HTML viewer
 (three.js-free, canvas projection), and keypoint/track overlays rendered

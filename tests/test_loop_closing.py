@@ -22,29 +22,6 @@ def make_cfg():
         sensor=STEREO)
 
 
-def orbit_scene(rng, n=1000, wall_radius=12.0, z_center=10.0):
-    """Cylindrical wall of sprites around the orbit center: an outward-
-    looking camera sees a stable, occlusion-free texture shell from every
-    angle (EuRoC-room-like geometry)."""
-    scene = synthetic.make_scene(rng, n)
-    a = rng.uniform(0, 2 * np.pi, n)
-    r = wall_radius + rng.uniform(-1.5, 1.5, n)
-    pts = np.stack([r * np.sin(a), rng.uniform(-5.0, 5.0, n),
-                    z_center - r * np.cos(a)], -1)
-    scene.points[:] = pts
-    return scene
-
-
-def outward_orbit(n, radius=4.0, z_center=10.0, turns=1.0):
-    """Camera circling the center while looking outward at the wall."""
-    poses = []
-    for i in range(n):
-        a = 2.0 * np.pi * turns * i / n
-        t = np.array([radius * np.sin(a), 0.0, z_center - radius * np.cos(a)])
-        poses.append(synthetic.look_ahead_pose(t, yaw=np.pi + a))
-    return poses
-
-
 @pytest.mark.slow
 def test_relocalization_after_lost(rng):
     cfg = make_cfg()
@@ -76,11 +53,12 @@ def test_relocalization_after_lost(rng):
 def test_loop_closing_orbit(rng):
     cfg = make_cfg()
     voc = voc_mod.default_vocabulary()
-    scene = orbit_scene(rng)
+    scene = synthetic.orbit_scene(rng)
     # 1.25 turns: the consistency check needs several consecutive keyframes
     # after the first revisit (LoopClosing.cc:188-248 semantics)
     n_frames = 72
-    poses_gt = outward_orbit(n_frames, radius=4.0, z_center=10.0, turns=1.25)
+    poses_gt = synthetic.outward_orbit(n_frames, radius=4.0, z_center=10.0,
+                                       turns=1.25)
     eng = SlamEngine(cfg, vocabulary=voc)
     tracked = 0
     for i, T in enumerate(poses_gt):

@@ -218,7 +218,7 @@ def test_rotation_consistency(rng):
 
 
 def test_hamming_mxu_form_bit_identical(rng):
-    """The matmul (MXU) Hamming form used for large N*M must be
+    """The bf16 matmul Hamming form used for large N*M must be
     bit-identical to the popcount reference at and around the routing
     threshold (ops/hamming.py)."""
     import jax
@@ -233,3 +233,58 @@ def test_hamming_mxu_form_bit_identical(rng):
             a[:, None, :] ^ b[None, :, :]), -1).astype(jnp.int32)
         np.testing.assert_array_equal(
             np.asarray(hamming.hamming_matrix(a, b)), np.asarray(ref))
+
+
+def _np_match_descriptors(a, av, b, bv, nn_ratio, th):
+    """NumPy reference of match_descriptors without the rotation check:
+    dense Hamming, first-index argmin, ratio test, one source per target
+    (lowest distance, then lowest source index)."""
+    x = a.view(np.uint8)[:, None, :] ^ b.view(np.uint8)[None, :, :]
+    d = np.unpackbits(x, axis=-1).sum(-1).astype(np.int32)
+    d[~(av[:, None] & bv[None, :])] = 256
+    idx = d.argmin(1)
+    rows = np.arange(len(a))
+    best = d[rows, idx]
+    d2 = d.copy()
+    d2[rows, idx] = 256
+    second = d2.min(1)
+    ok = (best <= th) & (best < nn_ratio * second) & av
+    match = np.where(ok, idx, -1)
+    for t in np.unique(match[match >= 0]):
+        srcs = np.flatnonzero(match == t)
+        keep = srcs[np.argmin(best[srcs])]       # first of the minima
+        match[srcs[srcs != keep]] = -1
+    return match, best, idx, second
+
+
+@pytest.mark.parametrize("A,B", [(1024, 1024), (600, 4608)])
+def test_match_descriptors_equals_dense_reference(rng, A, B):
+    """match_descriptors is masked_hamming_matrix + best_and_second + the
+    ratio test + duplicate resolution, with invalid rows and ties."""
+    from orbslam2_tpu.ops import hamming
+
+    b = rng.integers(0, 2 ** 32, (B, 8), dtype=np.uint32)
+    b[1::50] = b[0::50][:len(b[1::50])]          # tied targets
+    a = rng.integers(0, 2 ** 32, (A, 8), dtype=np.uint32)
+    src = rng.choice(B, A // 2)
+    src[:40] = src[40:80]                        # two sources per target
+    bits = np.unpackbits(b[src].view(np.uint8), axis=1)
+    flips = rng.random(bits.shape) < rng.uniform(0, 0.25, (A // 2, 1))
+    a[:A // 2] = np.packbits(bits ^ flips, axis=1).view(np.uint32)
+    av = rng.random(A) < 0.9
+    bv = rng.random(B) < 0.9
+
+    m, d = matching.match_descriptors(
+        jnp.asarray(a), jnp.asarray(av), jnp.asarray(b), jnp.asarray(bv),
+        nn_ratio=0.7, th=matching.TH_LOW, check_rotation=False)
+    rm, rbest, ridx, rsec = _np_match_descriptors(a, av, b, bv, 0.7,
+                                                  matching.TH_LOW)
+    assert (rm >= 0).sum() > A // 10                 # the case is not empty
+    np.testing.assert_array_equal(np.asarray(m), rm)
+    np.testing.assert_array_equal(np.asarray(d), rbest)
+
+    best, idx, sec = matching.best_and_second(hamming.masked_hamming_matrix(
+        jnp.asarray(a), jnp.asarray(av), jnp.asarray(b), jnp.asarray(bv)))
+    np.testing.assert_array_equal(np.asarray(best), rbest)
+    np.testing.assert_array_equal(np.asarray(idx), ridx)
+    np.testing.assert_array_equal(np.asarray(sec), rsec)

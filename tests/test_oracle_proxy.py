@@ -80,12 +80,11 @@ def _run_leg(frames, poses_gt, cfg, rng, enable_loop_closing=False,
 
 def _wall_orbit_frames(rng, cfg, n, turns):
     """Outward-looking orbit inside a cylindrical sprite wall — the
-    test_loop_closing geometry (stable, occlusion-free from every
+    synthetic.orbit_scene geometry (stable, occlusion-free from every
     angle); turns=1 closes the loop."""
-    from tests.test_loop_closing import orbit_scene, outward_orbit
-
-    scene = orbit_scene(rng, n=1400)
-    poses_gt = outward_orbit(n, radius=4.0, z_center=10.0, turns=turns)
+    scene = synthetic.orbit_scene(rng, n=1400)
+    poses_gt = synthetic.outward_orbit(n, radius=4.0, z_center=10.0,
+                                       turns=turns)
     frames = [synthetic.render_stereo(scene, cfg.camera, T, rng, 1.0)
               for T in poses_gt]
     return frames, poses_gt

@@ -1,4 +1,4 @@
-"""Per-dispatch profiling of the SLAM-mode window pipeline on the chip.
+"""Per-dispatch profiling of the SLAM-mode window pipeline on the GPU.
 
 Times each device program separately at steady state (bench shapes):
   track_window, mapping_step (and its sub-stages via split programs),
@@ -29,11 +29,11 @@ def timeit(fn, *args, n=10, **kw):
 
 
 def main():
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                          os.path.join(os.path.dirname(__file__), "..", "..",
-                                       ".jax_cache"))
     import jax
     import jax.numpy as jnp
+
+    from orbslam2_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
 
     from orbslam2_tpu.config import (CameraConfig, CapacityConfig, OrbConfig,
                                      STEREO, SlamConfig)

@@ -32,11 +32,8 @@ def main():
     a = ap.parse_args()
 
     import jax
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(os.path.dirname(__file__), "..", "..",
-                                   ".jax_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
+    from orbslam2_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     from orbslam2_tpu.config import (CameraConfig, CapacityConfig,
                                      OrbConfig, STEREO, SlamConfig)
     from orbslam2_tpu.runtime.windowed import WindowedSlamEngine
@@ -164,7 +161,8 @@ def main():
                 "rounded-rectangle tour (~420 m/lap) in a closed room; "
                 f"capacity {a.max_kf} keyframes / {a.max_mp} map points; "
                 "loop closing + background GBA on.  Generated by "
-                "`tools/benchmarks/scale_demo.py` on the bench TPU.\n\n")
+                "`tools/benchmarks/scale_demo.py` on "
+                f"{jax.devices()[0].device_kind}.\n\n")
         f.write("| frames | fps | keyframes | points | culled | loops |"
                 " mem MB |\n|---|---|---|---|---|---|---|\n")
         for r in curve:
